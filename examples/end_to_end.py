@@ -6,8 +6,8 @@ Meshing::Mesh::SignedDistanceAtPt; see SURVEY.md section 3.4) plus the
 capabilities the reference does not have: differentiable rendering and a
 depth-target inverse step.
 
-Run on CPU (slow but exact):   HPSDF_PLATFORM=cpu python examples/end_to_end.py
-Run on the TPU:                python examples/end_to_end.py
+Run on the GPU:     python examples/end_to_end.py
+Run on CPU:         JAX_PLATFORMS=cpu python examples/end_to_end.py
 """
 
 import os
@@ -18,9 +18,11 @@ import jax
 import jax.numpy as jnp
 
 import hpsdf_tpu as hp
+from hpsdf_tpu import compile_cache
 from hpsdf_tpu import mesh as M
 from hpsdf_tpu.mesh import gen
 
+compile_cache.enable()
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
 os.makedirs(OUT, exist_ok=True)
 on_accel = jax.devices()[0].platform != "cpu"
@@ -35,7 +37,7 @@ print("mesh -> signed-distance oracle")
 t0 = time.perf_counter()
 v, f = gen.icosphere(0.3, 5 if on_accel else 3)  # 20,480 / 1,280 triangles
 mesh = M.build_mesh(v, f)                        # native C++ fast path
-F = M.mesh_sdf(mesh)                             # fastest measured method
+F = M.mesh_sdf(mesh)                             # method chosen by size
 stamp(f"{mesh.n_faces} tris, watertight, pseudo-normals", t0)
 
 # 2. Fit the hp-adaptive octree (Octree::Create equivalent). The CPU
@@ -45,8 +47,7 @@ print("hp-adaptive fit")
 t0 = time.perf_counter()
 cfg = hp.Config(target_error=1e-5 if on_accel else 1e-4,
                 max_depth=4, max_degree=4 if on_accel else 3,
-                continuity=False,
-                fit_dtype="compensated" if on_accel else "float64")
+                continuity=False, fit_dtype="float64")
 tree = hp.build_octree(cfg, F)
 stamp(f"{tree.n_nodes} nodes, deg<= {tree.deg_used}", t0)
 

@@ -1,14 +1,10 @@
 """Gather-optimized read path: packed node rows + dense leaf-row grid.
 
-Why this exists (measured on TPU v5e through this repo's bench protocol;
-re-measured round 4, experiments/gather_probe2.py): XLA TPU gathers are
-row-count-bound at a flat ~3.5 ns/row for row widths 8..128 f32 from
-tables <= ~16 MB (rising to ~7 ns at 464-512 lanes and 13-17 ns/row once
-the table outgrows ~16 MB), but catastrophically slow for narrow gathers
-(scalar gathers cost ~100x more per element). The generic query path
-(query.py) descends with ~11 narrow gathers per point; at 1M-point batches
-that is ~90 ms per evaluation -- unusable for sphere tracing at 200
-steps/ray.
+Why this exists: a gather's cost is set by the number of rows it fetches
+far more than by their width, and narrow (scalar) gathers are the most
+expensive per byte. The generic query path (query.py) descends with ~11
+narrow gathers per point, which is too slow for sphere tracing at 200
+steps per ray.
 
 This module re-lays the octree for reading:
 
@@ -24,12 +20,12 @@ This module re-lays the octree for reading:
     One W-wide gather fetches everything a descent step or a leaf
     evaluation needs.
 
-  * **Whole-row consumption.** XLA propagates slices INTO a gather: a
-    gathered row consumed as ``row[..., 2:5]``/``row[..., 8:]`` compiles to
-    several NARROW gathers, which measured 2-5x slower than one wide gather
-    on v5e. Every read therefore consumes the full row: descent/eval
-    metadata is extracted with a one-hot (W, 4) matmul and the coefficient
-    contraction zero-pads the basis products to width W and reduces
+  * **Whole-row consumption.** XLA can propagate slices INTO a gather: a
+    gathered row consumed as ``row[..., 2:5]``/``row[..., 8:]`` may compile
+    to several NARROW gathers. Every read therefore consumes the full row:
+    descent/eval metadata is extracted with a one-hot (W, 4) matmul at
+    HIGHEST precision (see ``row_meta``) and the coefficient contraction
+    zero-pads the basis products to width W and reduces
     ``sum(row * prod_full)``.
 
   * **Dense leaf-row grid** at depth Dg = min(depth_used, GRID_DEPTH_CAP):
@@ -42,7 +38,7 @@ This module re-lays the octree for reading:
 The packed layout is read-only: it is derived from a fitted Octree once
 (``pack_tree``) and reused across queries/traces. The reference's analogue
 is the pointer-free child-offset descent (Source/HP/Octree.cpp:674-699);
-this is that idea re-shaped around TPU gather economics.
+this is that idea re-shaped around wide-row gathers.
 """
 
 from __future__ import annotations
@@ -57,12 +53,9 @@ import jax.numpy as jnp
 from . import basis
 from .tree import Octree
 
-# Dense grid depth cap. Row gathers measured FLAT at ~3.5 ns/row for widths
-# 8..128 lanes on v5e -- but only while the TABLE is small: a 67 MB
-# (262144 x 64) table gathers at 13-17 ns/row, 4x worse (experiments/
-# gather_probe2.py + table-size probe, round 4). The binding constraint is
-# table bytes, not row width, so the grid is capped at 32^3 cells and the
-# byte budget guards wide-row trees.
+# Dense grid depth cap. Random row gathers stay cheap only while the TABLE
+# fits the device's fast cache level; past it every row is a miss. So the
+# grid is capped at 32^3 cells and the byte budget guards wide-row trees.
 GRID_DEPTH_CAP = 5
 GRID_BYTE_BUDGET = 20 << 20
 COEFF_LANE = 8
@@ -219,8 +212,13 @@ def _meta_matrix(width: int):
 
 
 def row_meta(row: jax.Array) -> jax.Array:
-    """(B, 4) = [scale, centre xyz] extracted via full-row matmul."""
-    return row @ _meta_matrix(row.shape[-1])
+    """(B, 4) = [scale, centre xyz] extracted via full-row matmul.
+
+    HIGHEST precision: at default precision a GPU may run an f32 matmul in
+    TF32 (10-bit mantissa), which rounds the leaf centres and scales that
+    point location compares against -- wrong leaves below depth ~8."""
+    return jnp.matmul(row, _meta_matrix(row.shape[-1]),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def to_unit(pt: PackedTree, pts: jax.Array) -> jax.Array:
@@ -263,14 +261,12 @@ def locate(pt: PackedTree, unit: jax.Array) -> jax.Array:
 # Low-degree (LOD) row tables for the far-field march phase
 # --------------------------------------------------------------------------
 #
-# TPU row gathers are row-count-bound at ~3.7 ns/row up to 32 f32 lanes but
-# ~9.9 ns at the 96-lane deg-6 rows (module docstring). Far from the
-# surface the march does not need the full polynomial: a 32-lane row with
-# the deg<=2 coefficients plus an exact truncation bound supports
-# CONSERVATIVE sphere-trace steps (march on v_lo - err <= f), at 2.7x
-# cheaper gathers and ~5x cheaper evals. render._march runs a first march
-# phase on these tables and hands lanes off to the full rows near the
-# surface. p-refinement concentrates degree near the surface, so far-field
+# Far from the surface the march does not need the full polynomial: a
+# 32-lane row with the deg<=2 coefficients plus an exact truncation bound
+# supports CONSERVATIVE sphere-trace steps (march on v_lo - err <= f), with
+# narrower gathers and ~5x cheaper evals than the full rows. render._march
+# runs a first march phase on these tables and hands lanes off to the full
+# rows near the surface. p-refinement concentrates degree near the surface, so far-field
 # leaves usually have deg <= 2 exactly (err = 0): phase 1 marches them at
 # full speed.
 

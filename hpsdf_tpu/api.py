@@ -1,6 +1,6 @@
 """Top-level user API.
 
-The TPU-native counterpart of the ``SDF::Octree`` public surface
+The batched counterpart of the ``SDF::Octree`` public surface
 (reference: Include/HP/Octree.h:50-86): build, query, CSG, serialization.
 Functional style -- every operation returns a new (immutable) Octree pytree.
 """

@@ -1,6 +1,6 @@
 """Global constants for the hp-adaptive SDF octree.
 
-TPU-native re-design of the reference library's compile-time constants
+Re-design of the reference library's compile-time constants
 (reference: Include/HP/Consts.h:7-8, Include/Utility/Literals.h:13-14).
 """
 

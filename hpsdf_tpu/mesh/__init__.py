@@ -1,4 +1,4 @@
-"""Mesh -> SDF pipeline (TPU-native redesign of the reference's Meshing
+"""Mesh -> SDF pipeline (batched redesign of the reference's Meshing
 namespace, SURVEY.md components C12-C16).
 
   obj.py   <- ObjParser           (Include/Meshing/ObjParser.h)
@@ -8,8 +8,8 @@ namespace, SURVEY.md components C12-C16).
   nn.py    <- NNOctree            (Include/Meshing/NNOctree.h)
   sdf.py   <- batched signed-distance callables (the reference's
               Mesh::SignedDistanceAtPt + BVH::ClosestTriangleToPt read path)
-  pallas_sdf.py <- Pallas TPU kernel: dense tiled points x triangles
-              closest-distance scan (the exact O(T) oracle as VPU tiles)
+  pallas_sdf.py <- Pallas (Triton) kernel: dense tiled points x
+              triangles closest-distance scan (the exact O(T) oracle)
 
 The read path is device-resident: triangles and BVH nodes are packed into
 wide gather-friendly rows (see accel.py for the gather economics) and the

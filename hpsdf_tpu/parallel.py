@@ -3,7 +3,7 @@ differentiable training step over the coefficient field.
 
 The reference's entire parallel runtime is two std::thread pools plus OpenMP
 inside Eigen's CG (SURVEY.md section 2, C9/C10); there is no distributed
-backend to translate. This module is the from-scratch TPU-native scaling
+backend to translate. This module is the from-scratch multi-device scaling
 design (SURVEY.md sections 5.7/5.8):
 
   * **batch axis** ("dp"): query points / rays / pixels are embarrassingly
@@ -12,7 +12,7 @@ design (SURVEY.md sections 5.7/5.8):
     Include/Meshing/BVH.h:61-68).
   * **node axis** ("tp"): the flat SoA node arrays (and their coefficient
     rows) shard across chips for memory capacity; descent gathers become XLA
-    all-gathers/collective-permutes over ICI.
+    collectives between devices.
   * gradient aggregation: the coefficient cotangent from a sharded loss is a
     psum over the batch axis -- XLA inserts it from the sharding annotations;
     no hand-written collectives.
@@ -45,7 +45,7 @@ def init_distributed(coordinator_address: str | None = None,
     defaults (SURVEY.md section 5.8 -- the reference has no distributed
     backend; this is the from-scratch multi-host entry). After this,
     ``jax.devices()`` spans all hosts and ``make_mesh`` builds global
-    meshes whose collectives ride ICI/DCN. No-op when already initialized
+    meshes whose collectives span hosts. No-op when already initialized
     or when running single-process with no coordinator configured."""
     import os
 
@@ -94,7 +94,8 @@ def tree_sharding(mesh: Mesh, tree: Octree, shard_nodes: bool = False):
     an all-gather of the node arrays. Per-device argument bytes drop from
     268.5 MB (replicated) to 33.7 MB (1/8), temps stay batch-sized, so the
     layout genuinely scales capacity; the price is ~(depth+1) batch-sized
-    all-reduces per query batch riding ICI.
+    all-reduces per query batch. The cards of one host are joined all to
+    all, so the mesh shape follows the algorithm, not a topology.
     """
     row = P(NODE_AXIS) if shard_nodes else P()
     row2 = P(NODE_AXIS, None) if shard_nodes else P()

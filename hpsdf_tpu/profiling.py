@@ -52,7 +52,7 @@ class PhaseTimer:
 def device_trace(log_dir: str):
     """Per-kernel device profiling via the JAX profiler: wraps
     ``jax.profiler.trace``; open the result with TensorBoard's profile
-    plugin or Perfetto. The TPU-native replacement for the reference's
+    plugin or Perfetto. The replacement for the reference's
     absent tracing subsystem (SURVEY.md section 5.1)."""
     with jax.profiler.trace(log_dir):
         yield

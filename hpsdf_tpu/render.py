@@ -1,6 +1,6 @@
 """Batched differentiable sphere tracing.
 
-TPU-native generalization of the reference's scalar ``Octree::QueryRay``
+Batched generalization of the reference's scalar ``Octree::QueryRay``
 (Source/HP/Octree.cpp:705-746, marked "Untested" at Include/HP/Octree.h:73)
 and ``SDF::Ray`` slab intersection (Source/HP/Ray.cpp:17-65):
 
@@ -16,7 +16,7 @@ and ``SDF::Ray`` slab intersection (Source/HP/Ray.cpp:17-65):
 March structure (gather economics, see accel.py): an outer while_loop
 locates every ray's leaf with ONE wide gather (packed rows + dense grid),
 then an inner unrolled loop takes up to INNER_STEPS sphere-trace steps
-evaluating the *carried* leaf row -- pure VPU work, no gathers. Lanes that
+evaluating the *carried* leaf row -- pure elementwise work, no gathers. Lanes that
 step out of their leaf freeze until the next outer relocation. This
 amortizes the dominant cost (row gathers) over several march steps.
 
@@ -54,26 +54,22 @@ MAX_STEPS = 200          # per-ray step cap        (:725)
 HIT_EPS = 1e-4           # |v| < eps  => surface   (:733)
 STEP_SCALE = 0.95        # 5% SDF-error safety     (:739)
 MIN_STEP = 1e-4          # minimum advance         (:739)
+# Inner-step counts and the other march constants below come from sweeps
+# on other hardware; their numbers do not carry over: re-derive on the card
+# (ROADMAP speed item 5).
 INNER_STEPS = 1          # gather-free steps per leaf relocation, for SHALLOW
                          # low-degree trees (width <= 32 lanes, no descent
                          # below the grid): over-relaxed lanes leave those
                          # big leaves almost every step, so extra inner evals
-                         # only waste frozen-lane work (v5e sweep: inner=1
-                         # 12.3 Mrays/s vs 10.6 at inner=4)
+                         # only waste frozen-lane work
 INNER_STEPS_DEEP = 3     # and for DEEP/high-degree trees (reference-default
                          # builds): near-surface leaves are tiny but so are
                          # the steps, lanes dwell several steps per leaf, and
                          # each avoided relocation saves 2+ wide-row gathers
-                         # (v5e refdefault sweep, round 4, at lo=1:
-                         # deep=1/2/3 measure 2.08 / 3.70 / 3.85 Mrays/s)
-INNER_STEPS_LO = 3       # far-field LOD phase inner count. The round-3
-                         # advisor conjectured 1 (big deg<=2 leaves, lanes
-                         # leave every step); the round-4 v5e sweep on the
-                         # reference-default tree REFUTES that: at deep=3,
-                         # lo=1/2/3 measure 3.85 / 4.34 / 4.45 Mrays/s --
-                         # LOD-phase steps far from the surface are SMALL
-                         # relative to the big leaves (conservative v_lo-err
-                         # stepping), so lanes dwell there too
+INNER_STEPS_LO = 3       # far-field LOD phase inner count: LOD-phase steps
+                         # far from the surface are SMALL relative to the
+                         # big leaves (conservative v_lo-err stepping), so
+                         # lanes dwell there too
 LEAF_TOL = 1.0 + 1e-5    # |local| bound counting as "still in this leaf"
 
 
@@ -190,14 +186,13 @@ def _inner_steps_for(pt: PackedTree) -> int:
 # the t-Lipschitz constant of the margin is (1 + dd), which the cone step
 # divides out.
 
-# Pixel-tile edge for the cone prepass (T x T fine rays per coarse ray).
-# v5e headline sweep (round 5): tile 4 17.5 / tile 8 22.2 / tile 16 21.4
-# Mrays/s -- tile 4's 65k coarse rays make the prepass itself too big,
-# tile 16's wider cones stop too far from the surface.
+# Pixel-tile edge for the cone prepass (T x T fine rays per coarse ray):
+# smaller tiles make the prepass itself too big, larger tiles' wider cones
+# stop too far from the surface.
 CONE_TILE = 8
 # Cone-march round cap: a cone GRAZING the surface creeps exactly like a
-# grazing ray (margin ~ 2e-3 per step; measured 149 rounds / 21 ms
-# monolithic on the v5e headline) -- but suspending the cone early is
+# grazing ray (margin ~ 2e-3 per step; ~150 rounds uncapped on the
+# depth-5 sphere tree) -- but suspending the cone early is
 # always safe (fine rays simply start at the capped parameter), so the
 # prepass is bounded to this many rounds.
 CONE_CAP = 24
@@ -266,8 +261,8 @@ def cone_start(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
     pay off (it is CORRECT regardless -- an incoherent tile just gets a
     huge cone that stops immediately)."""
     H, W, T = tiles
-    # one transpose to tile-contiguous (ntiles, T*T, 3): the direct 5-D
-    # strided max-reduction lowered to ~5 ms of transposes on v5e
+    # one transpose to tile-contiguous (ntiles, T*T, 3) instead of a
+    # direct 5-D strided max-reduction
     ot = origins.reshape(H // T, T, W // T, T, 3).transpose(0, 2, 1, 3, 4)
     dt_ = dirs.reshape(H // T, T, W // T, T, 3).transpose(0, 2, 1, 3, 4)
     ot = ot.reshape(-1, T * T, 3)
@@ -293,10 +288,8 @@ def cone_start(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
 
 # Rays per independently-terminating chunk. One monolithic while_loop runs
 # every lane until the WORST ray finishes; marching camera-coherent chunks
-# through lax.map lets finished tiles stop early. Swept on v5e at 1024^2
-# rays (round 3, with block-sorted rays + inner=1): 8192 edges out
-# 4096/6144/16384 within ~3%; smaller chunks under-fill the VPU, larger
-# ones re-couple divergent rays (monolithic: ~10x slower).
+# through lax.map lets finished tiles stop early; smaller chunks
+# under-fill the device, larger ones re-couple divergent rays.
 MARCH_CHUNK = 8192
 
 
@@ -309,9 +302,7 @@ def _march_key(pt: PackedTree, origins, dirs, t_start=None):
     rays wastes the whole chunk's remaining slots. |f| at the start
     predicts cost well: near-surface starts are the expensive rays. Rays
     missing the root AABB -- or whose cone provably escaped -- sort to the
-    tail (+inf) where whole chunks terminate immediately. Measured on v5e
-    at 1024^2 rays: 2.4x (5.5 -> 13.3 Mrays/s), including the key eval +
-    argsort + permutation gathers.
+    tail (+inf) where whole chunks terminate immediately.
     """
     half = 0.5 * jnp.asarray(pt.root_sizes, jnp.float32)
     rc = jnp.asarray(pt.root_centre, jnp.float32)
@@ -328,12 +319,9 @@ def _march_key(pt: PackedTree, origins, dirs, t_start=None):
 
 # Rays per sort unit. Keys are evaluated once per block and blocks are
 # permuted/unpermuted as packed 48/16-lane rows: one WIDE row gather instead
-# of two narrow (B, 3) gathers each way (narrow-gather permutation measured
-# ~19 ms of the 31.6 ms sort pipeline at 1M rays on v5e), and the key eval +
-# argsort shrink by the block factor. Camera-adjacent rays share march cost,
-# so per-chunk cost uniformity -- the reason for sorting -- is preserved.
-# v5e sweep at 1024^2, chunk 8192/inner 1/omega 1.3: block 4 -> 12.2,
-# block 8 -> 16.2, block 16 -> 15.7 Mrays/s (unsorted: 3.9).
+# of two narrow (B, 3) gathers each way, and the key eval + argsort shrink
+# by the block factor. Camera-adjacent rays share march cost, so per-chunk
+# cost uniformity -- the reason for sorting -- is preserved.
 SORT_BLOCK = 8
 
 
@@ -364,11 +352,10 @@ def _unsort_blocks(perm, t, hit):
     """Invert _sorted_blocks on per-ray (t, hit): pack each block's results
     into one row, gather rows through the inverse permutation (wide), unpack.
 
-    The inverse permutation is a second sort, NOT a scatter: the round-5
-    budget (experiments/march_budget.py + sort_probe.py) put the former
-    ``zeros.at[perm].set(iota)`` scatter at ~11 ms of the 28 ms sort
-    pipeline on v5e -- TPU scatters serialize -- while argsort of the same
-    131k rows is ~2.6 ms."""
+    The inverse permutation is a second sort, NOT a scatter
+    (``zeros.at[perm].set(iota)``), which measured several times slower
+    than an argsort of the same rows on other hardware; re-measure on the
+    card."""
     nb = perm.shape[0]
     out_rows = jnp.concatenate(
         [t.reshape(nb, SORT_BLOCK),
@@ -385,14 +372,10 @@ def _unsort_blocks(perm, t, hit):
 # compacted to the front (stable sort preserves the cost order) and
 # finished in uncapped tail chunks. The cap bounds the divergence waste of
 # pass 1 (a chunk's cheap lanes freeze only until the cap, not until its
-# slowest grazing ray terminates -- measured occupancy 0.45 uncapped); the
-# recompaction packs the few surviving silhouette lanes densely. Swept on
-# v5e 1024^2 (round 5): no-LOD headline 8/16/24/32 -> 17.5/22.2/20.3/19.2
-# Mrays/s; refdefault 4/6/8/10/12/16/24 -> 4.5/5.6/6.1/6.0/5.8/5.2/4.6.
-# The discriminator is PER-ROUND COST, not LOD: refdefault pays 2 gathers
-# per relocation (extra_rounds=1 below its grid) + 3 inner evals, so a
-# smaller round budget before compaction pays; the wide-row tree (LOD on
-# but extra_rounds=0) measured 7.4 at cap 16 vs 5.9 at cap 8.
+# slowest grazing ray terminates); the recompaction packs the few
+# surviving silhouette lanes densely. The discriminator is PER-ROUND COST,
+# not LOD: a tree with extra_rounds > 0 pays 2 gathers per relocation + 3
+# inner evals, so a smaller round budget before compaction pays.
 PASS1_CAP = 16
 PASS1_CAP_DEEP = 8
 _STATE_F = 14            # packed state lanes per ray: o3 d3 t hit p1 p2
@@ -426,13 +409,11 @@ def _march_compacted(pt: PackedTree, origins, dirs, t_max, hit_eps,
                      with_stats: bool = False):
     """Capped chunks + survivor compaction by MEASURED step rate.
 
-    The round-5 march budget (experiments/march_budget.py) split the 67 ms
-    headline frame into a 28 ms sort pipeline (11 ms of it an unsort
-    scatter, since replaced by argsort) and a 42 ms chunked march at 0.45
-    active-lane occupancy: chunks run to their SLOWEST lane, so ~55% of the
-    gathered rows fed frozen lanes -- concentrated in the few chunks that
-    own grazing silhouette rays (round distribution p50 4 / p90 13 /
-    max 178). This schedule bounds that waste:
+    Chunks run to their SLOWEST lane, so in the plain chunked march about
+    half of the gathered rows (measured active-lane occupancy 0.45 on the
+    depth-5 tree at 1024^2) feed frozen lanes -- concentrated in the few
+    chunks that own grazing silhouette rays (relocation rounds per chunk:
+    p50 4 / p90 13 / max 178). This schedule bounds that waste:
 
       1. order ray blocks: with a cone prepass (``t_start``), actives pack
          to the front with a FREE binary liveness key (no field eval --
@@ -552,16 +533,9 @@ def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
     tile's cone contact (or skip it when the cone escapes). Requires the
     ray batch to be a row-major H x W grid.
 
-    Schedule selection (``sort_rays=None``) follows the measured v5e
-    matrix (round 5, 1024^2, Mrays/s):
-
-                              headline (no LOD)   refdefault (LOD)
-      legacy cost-sort               18.9               3.7
-      compact (step-rate tail)       17.7               5.4
-      compact + cone tile 8          22.1               3.9
-      legacy + cone                   --                1.9
-
-    so: LOD trees -> compact without cone (the cone forces every
+    Schedule selection (``sort_rays=None``), from a sweep on other
+    hardware that has not been repeated on the card: LOD trees -> compact
+    without cone (the cone forces every
     surviving lane straight into the wide-row full phase, forfeiting the
     cheap LOD approach that the compact schedule exploits); no-LOD trees
     -> compact + cone when ``cone_tiles`` is available, legacy cost-sort
@@ -572,7 +546,7 @@ def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
     B = origins.shape[0]
     lo = _lo_of(pt) if use_lod else None
     if cone_tiles is not None and lo is not None and sort_rays is None:
-        cone_tiles = None          # measured regression on LOD trees (above)
+        cone_tiles = None          # regression on LOD trees (above)
     t_start = None
     if cone_tiles is not None:
         t_start = cone_start(pt, origins, dirs, t_max, hit_eps, cone_tiles,
@@ -633,16 +607,15 @@ def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
 # Over-relaxation factor for the march (Keinert et al., "Enhanced Sphere
 # Tracing": step OMEGA*f instead of f while consecutive step spheres
 # overlap; on the first disjoint pair, roll back to the safe unrelaxed
-# step and drop that lane to plain tracing). 1.0 disables. Swept on v5e
-# at inner=1: 1.2-1.4 within noise of each other, 1.6+ pays rollbacks.
+# step and drop that lane to plain tracing). 1.0 disables; 1.6+ pays
+# rollbacks.
 OMEGA = 1.3
 
 # LOD->full handoff threshold, in hit_eps units: a lane leaves the far-field
 # (32-lane deg<=2) phase when its conservative value v_lo - err drops below
-# LOD_HANDOFF * hit_eps. Swept on the reference-default tree (v5e, 1024^2):
-# 4/8/32/128 within noise (4.4-4.5 Mrays/s) -- the march is not sensitive
-# because near-surface leaves carry large truncation bounds err, which force
-# the handoff regardless of the threshold.
+# LOD_HANDOFF * hit_eps. The march is not sensitive to it: near-surface
+# leaves carry large truncation bounds err, which force the handoff
+# regardless of the threshold.
 LOD_HANDOFF = 8.0
 
 
@@ -654,7 +627,7 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
     (t, hit, k) with k = i32[2]: [LOD-phase, full-phase] outer relocation
     rounds (k[0] = 0 when ``lo`` is None). ``with_stats`` appends the
     per-lane executed step counts (i32[B]) -- the frozen-lane occupancy
-    numerator of the march time budget (experiments/march_budget.py).
+    numerator of the march's occupancy.
 
     ``outer_cap`` = (cap_lo, cap_full) bounds the LOD-phase / full-phase
     outer relocation rounds (None = max_steps, i.e. uncapped); lanes still
@@ -694,8 +667,7 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
     A NEGATIVE result worth recording (round 4): certified leaf-exit jumps
     -- lanes in leaves whose coefficient-norm bound proves f > 0 jumping
     straight to the leaf's AABB exit -- measured a NO-OP on the reference-
-    default tree and -3% on the headline tree (v5e sweep, experiments/
-    march_sweep.py). The L1 corner bound c0 - sum|c_m| is tight for linear
+    default tree and -3% on the depth-5 tree. The L1 corner bound c0 - sum|c_m| is tight for linear
     fields, so exactly the near-surface-but-empty leaves that dominate the
     grazing-ray tail never certify; far-field leaves do, but over-relaxed
     f-steps there are already leaf-sized or larger. The jump logic was

@@ -37,25 +37,6 @@ from .config import Config, NearnessWeighting
 SERIAL_VERSION = 1
 
 
-def f64_device():
-    """Device that can actually hold f64: TPUs have no f64 datapath (f64
-    device_puts silently truncate to f32), so the tree's reference-precision
-    arrays live on the host CPU device when the default backend is an
-    accelerator. The f32 serving layouts (accel.pack_tree) re-upload."""
-    if jax.default_backend() == "cpu":
-        return None
-    return jax.devices("cpu")[0]
-
-
-def put_f64(x):
-    """jnp.asarray that never lands f64 data on an f64-truncating device."""
-    dev = f64_device()
-    a = np.asarray(x)
-    if dev is None or a.dtype != np.float64:
-        return jnp.asarray(a)
-    return jax.device_put(a, dev)
-
-
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class Octree:
@@ -126,8 +107,8 @@ def pack(child_idx: np.ndarray, centre: np.ndarray, depth: np.ndarray,
     co[:n] = coeffs[:n, :width]
 
     return Octree(
-        child_idx=jnp.asarray(ci), centre=put_f64(ce),
-        depth=jnp.asarray(dp), degree=jnp.asarray(dg), coeffs=put_f64(co),
+        child_idx=jnp.asarray(ci), centre=jnp.asarray(ce),
+        depth=jnp.asarray(dp), degree=jnp.asarray(dg), coeffs=jnp.asarray(co),
         n_nodes=n, deg_used=deg_used, depth_used=depth_used, config=config)
 
 
@@ -185,9 +166,9 @@ def load(path: str) -> Octree:
         )
         return Octree(
             child_idx=jnp.asarray(z["child_idx"]),
-            centre=put_f64(z["centre"]),
+            centre=jnp.asarray(z["centre"]),
             depth=jnp.asarray(z["depth"]),
             degree=jnp.asarray(z["degree"]),
-            coeffs=put_f64(z["coeffs"]),
+            coeffs=jnp.asarray(z["coeffs"]),
             n_nodes=meta["n_nodes"], deg_used=meta["deg_used"],
             depth_used=meta["depth_used"], config=cfg)

@@ -3,7 +3,7 @@
 // The reference implements its data pipeline in C++ (Meshing::ObjParser,
 // Source/Meshing/ObjParser.cpp, and Mesh::CreateHalfEdges,
 // Source/Meshing/Mesh.cpp:87-131). These are host-side, allocation-heavy
-// tasks with no TPU mapping, so this framework keeps them native too: a
+// tasks with no device mapping, so this framework keeps them native too: a
 // small C ABI shared library bound via ctypes (hpsdf_tpu/native.py), with
 // the pure-numpy implementations as behavioral oracles and fallback.
 //
@@ -237,7 +237,7 @@ int hpsdf_half_edges(const int32_t* faces, int64_t n_faces, int64_t n_verts,
 // BVH support: median-split (kd) ordering + triangle-row packing
 // ---------------------------------------------------------------------------
 //
-// TPU-side BVH traversal (hpsdf_tpu/mesh/bvh.py) wants triangles laid out so
+// Device-side BVH traversal (hpsdf_tpu/mesh/bvh.py) wants triangles laid out so
 // every power-of-two-aligned index range is a compact spatial box (a perfect
 // heap over a recursive median split). The numpy path builds this order with
 // one full argsort per level (O(n log^2 n) and single-threaded); here it is

@@ -1,6 +1,7 @@
 """Pallas tiled closest-triangle kernel vs the scan oracle (the reference's
 brute-force differential-test pattern, MeshingUnitTests.cpp:110-138). Runs
-the SAME kernel code in interpreter mode on the CPU backend."""
+the SAME kernel code in the Pallas interpreter, asked for explicitly; the
+compiled kernel is tested on the card by the ``gpu``-marked tests."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,21 +27,24 @@ def bvh(request):
 def test_tiles_match_brute_oracle(bvh):
     pts = uniform_pts(300, seed=11)
     ref = np.asarray(S.signed_distance_brute(bvh.tri_rows, pts))
-    got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts))
+    got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts,
+                                             interpret=True))
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
 def test_tiles_match_bvh(bvh):
     pts = uniform_pts(300, seed=12)
     ref = np.asarray(S.signed_distance(bvh, pts))
-    got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts))
+    got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts,
+                                             interpret=True))
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
 def test_closest_idx_and_d2(bvh):
     """d2/idx contract: idx indexes tri_rows, d2 is its squared distance."""
     pts = jnp.asarray(uniform_pts(128, seed=13), jnp.float32)
-    d2, idx = pallas_sdf.closest_tri_tiles(bvh.tri_rows, pts)
+    d2, idx = pallas_sdf.closest_tri_tiles(bvh.tri_rows, pts,
+                                         interpret=True)
     assert idx.dtype == jnp.int32 and d2.shape == (128,)
     rows = bvh.tri_rows[idx]
     from hpsdf_tpu.mesh import tri as T
@@ -53,7 +57,11 @@ def test_closest_idx_and_d2(bvh):
                                atol=1e-7)
 
 
-def test_mesh_sdf_tiles_method():
+def test_mesh_sdf_tiles_method(monkeypatch):
+    kernel = pallas_sdf.closest_tri_tiles
+    monkeypatch.setattr(pallas_sdf, "closest_tri_tiles",
+                        lambda t, p, interpret=False: kernel(
+                            t, p, interpret=True))
     v, f = icosphere_mesh(radius=0.3, subdivisions=2)
     m = build_mesh(v, f)
     F = M.mesh_sdf(m, method="tiles")
@@ -71,5 +79,6 @@ def test_ragged_sizes():
     for n in (1, 7, 130):
         pts = uniform_pts(n, seed=n)
         ref = np.asarray(S.signed_distance_brute(bvh.tri_rows, pts))
-        got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts))
+        got = np.asarray(S.signed_distance_tiles(bvh.tri_rows, pts,
+                                                 interpret=True))
         np.testing.assert_allclose(got, ref, atol=1e-6)

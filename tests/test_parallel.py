@@ -85,22 +85,21 @@ def test_sharded_train_step_reduces_loss(small_tree):
 
 def test_sharded_fit_matches_single_device(small_tree):
     """build(..., fit_mesh=mesh) shards every refinement round's
-    F-evaluation + projection over all 8 devices and must reproduce the
-    single-device build exactly -- cells are data-parallel, so per-cell
-    programs are identical (SURVEY.md 5.7, VERDICT round-1 missing #4)."""
+    F-evaluation + projection over all 8 devices and reproduces the
+    single-device build bit for bit -- cells are data-parallel (SURVEY.md
+    5.7) and each device runs the single-device block shape."""
     cfg = hp.Config(target_error=1e-6, continuity=False, max_depth=4,
                     max_degree=4)
     sharded = hp.build_octree(cfg, sphere_sdf(radius=0.3),
                               fit_mesh=parallel.make_mesh())
     np.testing.assert_array_equal(np.asarray(sharded.child_idx),
                                   np.asarray(small_tree.child_idx))
-    np.testing.assert_allclose(np.asarray(sharded.coeffs),
-                               np.asarray(small_tree.coeffs),
-                               rtol=0, atol=1e-15)
+    np.testing.assert_array_equal(np.asarray(sharded.coeffs),
+                                  np.asarray(small_tree.coeffs))
 
 
 def test_sharded_fit_compensated(small_tree):
-    """The compensated (TPU-resident) fit shards the same way."""
+    """The compensated fit shards the same way."""
     from hpsdf_tpu import df64
     cfg = hp.Config(target_error=1e-5, continuity=False, max_depth=4,
                     max_degree=3, fit_dtype="compensated")
@@ -109,9 +108,8 @@ def test_sharded_fit_compensated(small_tree):
     sharded = hp.build_octree(cfg, sph, fit_mesh=parallel.make_mesh())
     np.testing.assert_array_equal(np.asarray(sharded.child_idx),
                                   np.asarray(single.child_idx))
-    np.testing.assert_allclose(np.asarray(sharded.coeffs),
-                               np.asarray(single.coeffs),
-                               rtol=0, atol=1e-15)
+    np.testing.assert_array_equal(np.asarray(sharded.coeffs),
+                                  np.asarray(single.coeffs))
 
 
 def test_sharded_continuity_cg_matches_single_device(small_tree):
